@@ -7,13 +7,16 @@ the JAX package on a ported path becomes a kernel written by hand for Hopper
 under `ops/csrc/`, built from source on first use, with a plain PyTorch
 version beside it that the CPU takes.
 
-This slice serves `models.transformer.TransformerLM` through
-`serve.ServingEngine`, with the flash-attention forward as a CUDA kernel.
-Entry points run on `cuda` unless the caller passes `device="cpu"`.
+The port serves `models.transformer.TransformerLM` through
+`serve.ServingEngine` and trains it through `Model.__call__` ->
+`train_one_batch` -> `opt`, with the flash-attention forward and backward
+and the fused softmax cross-entropy as CUDA kernels. Entry points run on
+`cuda` unless the caller passes `device="cpu"`.
 """
 from . import (autograd, convert, device, export_cache, initializer, layer,
-               model, serve, tensor)
+               loss, metric, model, opt, serve, tensor)
 from .models import transformer
 
 __all__ = ["autograd", "convert", "device", "export_cache", "initializer",
-           "layer", "model", "serve", "tensor", "transformer"]
+           "layer", "loss", "metric", "model", "opt", "serve", "tensor",
+           "transformer"]

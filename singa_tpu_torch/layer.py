@@ -109,19 +109,19 @@ class Gelu(Layer):
 
 
 class Dropout(Layer):
-    """Identity in eval mode, as `singa_tpu.autograd.Dropout`. The train
-    branch (and its kernel) arrives with the training slice; until then a
-    train-mode forward with ratio > 0 raises."""
+    """Identity in eval mode, as `singa_tpu.autograd.Dropout`; in train mode
+    `autograd.dropout` with a mask in {0, 1/keep} drawn from `generator`
+    (the default torch stream of the input's device when None)."""
 
-    def __init__(self, ratio: float = 0.5, name=None):
+    def __init__(self, ratio: float = 0.5,
+                 generator: Optional[torch.Generator] = None, name=None):
         super().__init__(name)
         self.ratio = ratio
+        self.generator = generator
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and self.ratio > 0.0:
-            raise NotImplementedError(
-                "train-mode dropout arrives with the port's training "
-                "slice; call .eval() to serve")
+            return autograd.dropout(x, self.ratio, self.generator)
         return x
 
 

@@ -1,6 +1,6 @@
 """Decoder-only transformer LM. Counterpart of
 `singa_tpu.models.transformer` (`TransformerBlock`, `TransformerLM.forward`,
-`create_model`) for the forward path: pre-norm blocks, learned position
+`train_one_batch`, `create_model`): pre-norm blocks, learned position
 embeddings, optional tied embeddings, `layer` or `rms` norm.
 
 The KV-cached decode methods (`generate`, the slab ladder) and the mesh
@@ -102,6 +102,18 @@ class TransformerLM(model.Model):
             return autograd.matmul(h, autograd.transpose(self.embed.W,
                                                          (1, 0)))
         return self.head(h)
+
+    def train_one_batch(self, x: torch.Tensor, y: torch.Tensor):
+        """One step: logits [B, S, V], the mean cross-entropy over the
+        B*S positions (labels < 0 are padding), backward and the
+        optimizer's update. Returns (logits, loss)."""
+        self._require_optimizer()
+        out = self.forward(x)
+        logits = autograd.reshape(out, (-1, self.vocab_size))
+        labels = autograd.reshape(y, (-1,))
+        loss = autograd.softmax_cross_entropy(logits, labels)
+        self._optimizer.backward_and_update(loss)
+        return out, loss
 
 
 def create_model(vocab_size: int = 256, **kwargs) -> TransformerLM:

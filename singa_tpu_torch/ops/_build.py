@@ -36,7 +36,7 @@ def _build_dir(module_file: str = __file__) -> Path:
 BUILD_DIR = _build_dir()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("flash_attn_fwd",)
+KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "softmax_xent")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

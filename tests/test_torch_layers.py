@@ -96,11 +96,15 @@ def test_sequential_names_children_like_jax():
 
 
 def test_dropout_identity_in_eval_and_loud_in_train():
-    d = layer.Dropout(0.3)
-    x = torch.randn(4, 4)
+    """Eval mode is the identity; train mode masks: every output is 0 or
+    x / keep (the train branch's statistics are in test_torch_train.py)."""
+    d = layer.Dropout(0.3, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(64, 64)
     assert d.eval()(x) is x
-    with pytest.raises(NotImplementedError, match="training slice"):
-        d.train()(x)
+    y = d.train()(x)
+    kept = y != 0
+    assert 0 < int(kept.sum()) < x.numel()
+    torch.testing.assert_close(y[kept], x[kept] / 0.7, rtol=1e-6, atol=0)
     assert layer.Dropout(0.0).train()(x) is x
 
 

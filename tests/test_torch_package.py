@@ -48,7 +48,9 @@ def test_package_imports_with_jax_blocked():
         "for m in ('jax', 'jaxlib', 'singa_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import singa_tpu_torch, singa_tpu_torch.ops.flash_attention\n"
-        "import singa_tpu_torch.ops._build\n"
+        "import singa_tpu_torch.ops._build, singa_tpu_torch.ops.softmax_xent\n"
+        "import singa_tpu_torch.opt, singa_tpu_torch.loss\n"
+        "import singa_tpu_torch.metric\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in "
         "sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -131,3 +133,72 @@ def test_chip_smoke_fails_without_the_port_beside_it(tmp_path, monkeypatch,
     assert Path(singa_tpu_torch.__file__).resolve().parents[1] == ROOT
     assert _load_smoke(lone).main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_every_kernel_has_its_source():
+    from singa_tpu_torch.ops import _build
+
+    assert set(_build.KERNELS) == {"flash_attn_fwd", "flash_attn_bwd",
+                                   "softmax_xent"}
+    for name in _build.KERNELS:
+        src = _build.CSRC / f"{name}.cu"
+        assert src.is_file(), src
+        text = src.read_text()
+        assert "Replaces: singa_tpu/ops/pallas_kernels.py" in text
+        assert "singa_cuda_error_string" in text
+        assert "cudaGetLastError()" in text
+
+
+def _wrappers():
+    from singa_tpu_torch.ops import flash_attention, softmax_xent
+
+    return [(flash_attention.flash_attention, "launches"),
+            (flash_attention.flash_attention_bwd, "dq_launches"),
+            (flash_attention.flash_attention_bwd, "dkv_launches"),
+            (softmax_xent.softmax_xent, "launches"),
+            (softmax_xent.softmax_xent_bwd, "launches")]
+
+
+@pytest.mark.parametrize("index", range(5))
+def test_every_kernel_wrapper_counts_its_launches(index):
+    fn, attr = _wrappers()[index]
+    assert isinstance(getattr(fn, attr), int), (fn.__name__, attr)
+
+
+def _c_params(source: str, fn: str):
+    """The parameter kinds of `int fn(...)` in a kernel source: "ptr",
+    "int" or "float"."""
+    import re
+
+    sig = re.search(rf"int {fn}\(([^)]*)\)", source).group(1)
+    return [p.split()[-2] if "*" not in p else "ptr"
+            for p in (" ".join(x.split()) for x in sig.split(","))]
+
+
+@pytest.mark.parametrize("source,fn,module", [
+    ("softmax_xent", "singa_softmax_xent_fwd", "softmax_xent"),
+    ("softmax_xent", "singa_softmax_xent_bwd", "softmax_xent"),
+    ("flash_attn_bwd", "singa_flash_attn_bwd_dq", "flash_attention"),
+    ("flash_attn_bwd", "singa_flash_attn_bwd_dkv", "flash_attention"),
+])
+def test_c_interfaces_match_the_wrappers_argtypes(source, fn, module,
+                                                  monkeypatch):
+    """The argtypes each wrapper sets follow the C signature of its kernel
+    source (ctypes would pass a pointer given as an int as 32 bits)."""
+    import ctypes
+    import importlib
+    from types import SimpleNamespace
+
+    from singa_tpu_torch.ops import _build
+
+    kinds = _c_params((_build.CSRC / f"{source}.cu").read_text(), fn)
+    lib = SimpleNamespace(**{
+        name: SimpleNamespace(argtypes=None)
+        for name in ("singa_softmax_xent_fwd", "singa_softmax_xent_bwd",
+                     "singa_flash_attn_bwd_dq", "singa_flash_attn_bwd_dkv")})
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    mod = importlib.import_module(f"singa_tpu_torch.ops.{module}")
+    (mod._lib if module == "softmax_xent" else mod._bwd_lib)()
+    names = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+             ctypes.c_float: "float"}
+    assert [names[t] for t in getattr(lib, fn).argtypes] == kinds
